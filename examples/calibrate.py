@@ -10,26 +10,26 @@ Two workflows the reference framework cannot express at all:
    GATA6-high fraction.
 
 Run:  JAX_PLATFORMS=cpu PYTHONPATH=. python examples/calibrate.py
-(or on the TPU by dropping JAX_PLATFORMS; calibration-sized colonies run
+(or on the GPU by dropping JAX_PLATFORMS; calibration-sized colonies run
 fine either way.)
 """
 
 import dataclasses
 
-from hipsc_abm_tpu.calibrate import (
+from hipsc_abm.calibrate import (
     Calibrator,
     gata6_high_fraction,
     radius_of_gyration,
     squared_error,
 )
-from hipsc_abm_tpu.engine import HipscEngine
-from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
+from hipsc_abm.engine import HipscEngine
+from hipsc_abm.models.params import ExperimentalParams, GeneralParams
 
 
 def make_engine(**kw):
     gen = GeneralParams(num_to_start=400, end_step=8, size=(500.0, 500.0, 0.0))
     xp = ExperimentalParams(num_gata6=40, dox_step=1)
-    return HipscEngine(gen, xp, use_pallas=False, **kw)
+    return HipscEngine(gen, xp, **kw)
 
 
 def synthetic_observation(statistic, steps=5, **bio_overrides):

@@ -3,7 +3,7 @@
 Where ``minimal_abm.py`` exercises the host-side registration/lifecycle
 surface, this model shows the intended pattern for PERFORMANT custom
 models: keep the per-step compute in one jit-compiled device function
-built from the reusable TPU ops (``ops.diffusion`` FTCS lattice +
+built from the reusable device ops (``ops.diffusion`` FTCS lattice +
 ``sample_concentration``/``deposit_morphogen``), and use the framework for
 agents, outputs, and lifecycle.
 
@@ -27,9 +27,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hipsc_abm_tpu import Simulation
-from hipsc_abm_tpu.ops import diffusion as diff_ops
-from hipsc_abm_tpu.utils.profiling import record_time
+from hipsc_abm import Simulation
+from hipsc_abm.ops import diffusion as diff_ops
+from hipsc_abm.utils.profiling import record_time
 
 SPAT_RES = 10.0  # um between lattice points
 DIFFUSE_CONST = 25.0  # um^2/s

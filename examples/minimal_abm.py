@@ -2,7 +2,7 @@
 
 Demonstrates that ``Simulation`` is a real framework (the pythonabm surface
 the reference model layer builds on), not just the hiPSC model's plumbing:
-register agents/arrays/graphs, query fixed-radius neighbors on the TPU grid
+register agents/arrays/graphs, query fixed-radius neighbors on the device grid
 engine, and drive the standard lifecycle/outputs.
 
 The model: random walkers that stop moving when crowded (>= 3 neighbors
@@ -18,8 +18,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import numpy as np
 
-from hipsc_abm_tpu import Simulation
-from hipsc_abm_tpu.utils.profiling import record_time
+from hipsc_abm import Simulation
+from hipsc_abm.utils.profiling import record_time
 
 
 class RandomWalkers(Simulation):

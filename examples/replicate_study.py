@@ -17,10 +17,10 @@ import sys
 import jax
 import jax.numpy as jnp
 
-from hipsc_abm_tpu.calibrate import gata6_high_fraction, radius_of_gyration
-from hipsc_abm_tpu.engine import HipscEngine
-from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
-from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+from hipsc_abm.calibrate import gata6_high_fraction, radius_of_gyration
+from hipsc_abm.engine import HipscEngine
+from hipsc_abm.models.params import ExperimentalParams, GeneralParams
+from hipsc_abm.parallel.ensemble import EnsembleEngine
 
 
 def colony_stats(states):

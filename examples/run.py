@@ -13,7 +13,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from hipsc_abm_tpu import CellSimulation
+from hipsc_abm import CellSimulation
 
 if __name__ == "__main__":
     CellSimulation.start(os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs"))

@@ -24,8 +24,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import numpy as np
 
-from hipsc_abm_tpu import ExperimentalParams, GeneralParams, HipscEngine
-from hipsc_abm_tpu.utils.io import hipsc_cell_colors, render_step_image, save_image_png
+from hipsc_abm import ExperimentalParams, GeneralParams, HipscEngine
+from hipsc_abm.utils.io import hipsc_cell_colors, render_step_image, save_image_png
 
 BOX = 600.0  # um, cubic
 BALL_RADIUS = 110.0  # seeding ball: over-packed so JKR relaxes it outward

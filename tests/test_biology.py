@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu.models import biology
-from hipsc_abm_tpu.models.params import BiologyParams, ExperimentalParams
+from hipsc_abm.models import biology
+from hipsc_abm.models.params import BiologyParams, ExperimentalParams
 
 BIO = BiologyParams()
 XP = ExperimentalParams()
@@ -67,7 +67,7 @@ def test_dead_slots_untouched():
 
 
 def make_arrays(capacity, **overrides):
-    from hipsc_abm_tpu.engine import HIPSC_ARRAY_SPECS
+    from hipsc_abm.engine import HIPSC_ARRAY_SPECS
 
     arrays = {}
     for name, (dtype, vec) in HIPSC_ARRAY_SPECS.items():

@@ -16,22 +16,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu.calibrate import (
+from hipsc_abm.calibrate import (
     Calibrator,
     gata6_high_fraction,
     radius_of_gyration,
     squared_error,
     trajectory_squared_error,
 )
-from hipsc_abm_tpu.engine import HipscEngine, hipsc_step
-from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
+from hipsc_abm.engine import HipscEngine, hipsc_step
+from hipsc_abm.models.params import ExperimentalParams, GeneralParams
 
 GEN = GeneralParams(num_to_start=150, end_step=5, size=(300.0, 300.0, 0.0))
 XP = ExperimentalParams(num_gata6=15, dox_step=1)
 
 
 def _settled_engine(**kw):
-    eng = HipscEngine(GEN, XP, use_pallas=False, **kw)
+    eng = HipscEngine(GEN, XP, **kw)
     state = eng.init_state(seed=0)
     state, _ = eng.safe_step(state)  # settle capacity growth
     return eng, state
@@ -135,11 +135,11 @@ def test_replicate_averaged_fit():
     parameter. A plain per-replicate loss against one scalar target would
     bottom out at the across-replicate variance instead — the reason
     EnsembleLoss exists."""
-    from hipsc_abm_tpu.calibrate import ensemble_squared_error
-    from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+    from hipsc_abm.calibrate import ensemble_squared_error
+    from hipsc_abm.parallel.ensemble import EnsembleEngine
 
     true_adh = 3.0e-4
-    eng_t = HipscEngine(GEN, XP, use_pallas=False)
+    eng_t = HipscEngine(GEN, XP)
     eng_t.bio = dataclasses.replace(eng_t.bio, adhesion_const=true_adh)
     ens_t = EnsembleEngine(eng_t)
     st = ens_t.init_states(seeds=[0, 1, 2])
@@ -150,7 +150,7 @@ def test_replicate_averaged_fit():
         for i in range(3)
     ]))
 
-    eng = HipscEngine(GEN, XP, use_pallas=False)
+    eng = HipscEngine(GEN, XP)
     cal = Calibrator(eng, ["adhesion_const"],
                      ensemble_squared_error(radius_of_gyration, target),
                      horizon=3)
@@ -165,8 +165,8 @@ def test_replicate_averaged_fit():
 def test_es_on_stacked_replicates_compiles_and_improves():
     """fit_es over a stacked replicate state: the population vmap nests
     over the inner replicate vmap (popsize x R rollouts in one program)."""
-    from hipsc_abm_tpu.calibrate import ensemble_squared_error
-    from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+    from hipsc_abm.calibrate import ensemble_squared_error
+    from hipsc_abm.parallel.ensemble import EnsembleEngine
 
     eng, _ = _settled_engine(enable_stochastic=True)
     eng_t, st = _settled_engine(enable_stochastic=True)
@@ -192,14 +192,13 @@ def test_gradient_finite_through_full_model_with_diffusion():
     """Reverse-mode AD stays finite through the COMPLETE step: morphogen
     FTCS subcycles, 4-point secretion/uptake deposits, and the
     field->pathway coupling, on top of the physics."""
-    from hipsc_abm_tpu.models.params import DiffusionParams
+    from hipsc_abm.models.params import DiffusionParams
 
     diff = DiffusionParams(spat_res=20.0, diffuse_dt=6.0, diffuse_const=2.0,
                            max_concentration=2.0, degradation=0.1,
                            release_amount=0.01, uptake_amount=0.002,
                            field_coupling=True)
-    eng = HipscEngine(GEN, XP, diff=diff, enable_diffusion=True,
-                      use_pallas=False)
+    eng = HipscEngine(GEN, XP, diff=diff, enable_diffusion=True)
     state = eng.init_state(seed=0)
     state, _ = eng.safe_step(state)
 
@@ -239,14 +238,14 @@ def test_sharded_replicate_fit_matches_unsharded():
     identical to the unsharded run — pod-scale parameter fitting is the
     same one-line API."""
     import jax
-    from hipsc_abm_tpu.calibrate import ensemble_squared_error
-    from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+    from hipsc_abm.calibrate import ensemble_squared_error
+    from hipsc_abm.parallel.ensemble import EnsembleEngine
 
     if jax.device_count() < 4:
         pytest.skip("needs the virtual multi-device mesh")
 
     def run(shard):
-        eng = HipscEngine(GEN, XP, use_pallas=False)
+        eng = HipscEngine(GEN, XP)
         cal = Calibrator(eng, ["adhesion_const"],
                          ensemble_squared_error(radius_of_gyration, 100.0),
                          horizon=2)
@@ -275,9 +274,9 @@ def test_nan_guards_do_not_change_the_primal():
     made the unguarded version NaN under reverse-mode AD."""
     import math
 
-    from hipsc_abm_tpu.ops.jkr import _pair_jkr
+    from hipsc_abm.ops.jkr import _pair_jkr
 
-    bio = HipscEngine(GEN, XP, use_pallas=False).bio
+    bio = HipscEngine(GEN, XP).bio
     adh, poi, yng, brk = (bio.adhesion_const, bio.poisson, bio.youngs,
                           bio.jkr_break_d)
 
@@ -332,7 +331,7 @@ def test_delta_trajectory_loss_cancels_offsets():
     exactly zero loss, while a rate mismatch is penalized."""
     import jax.numpy as jnp
 
-    from hipsc_abm_tpu.calibrate import delta_trajectory_squared_error
+    from hipsc_abm.calibrate import delta_trajectory_squared_error
 
     targets = np.array([10.0, 11.0, 12.5], dtype=np.float32)
     tl = delta_trajectory_squared_error(lambda s: s, targets)
@@ -346,7 +345,7 @@ def test_delta_trajectory_loss_cancels_offsets():
 def test_soft_contact_count_matches_bruteforce():
     """The smooth coordination statistic equals the numpy brute force on
     alive rows (same gate), and a hard-count sanity bound holds."""
-    from hipsc_abm_tpu.calibrate import soft_contact_count
+    from hipsc_abm.calibrate import soft_contact_count
 
     eng, state = _settled_engine()
     stat = soft_contact_count(10.0, 1.0)
@@ -370,7 +369,7 @@ def test_soft_contact_count_matches_bruteforce():
 def test_multi_delta_loss_normalizes_and_cancels_offsets():
     """Each observable's contribution is unit-free (normalized by its own
     target delta scale) and constant offsets cancel exactly."""
-    from hipsc_abm_tpu.calibrate import multi_delta_trajectory_squared_error
+    from hipsc_abm.calibrate import multi_delta_trajectory_squared_error
 
     t_rg = np.array([50.0, 49.0, 48.0], np.float32)       # um scale
     t_ct = np.array([0.10, 0.12, 0.14], np.float32)       # count scale
@@ -396,7 +395,7 @@ def test_joint_force_fit_with_two_observables():
     compaction course (docs/CALIBRATION.md) breaks when a coordination
     course is observed too: a JOINT fit from off starts on BOTH recovers
     both planted scales."""
-    from hipsc_abm_tpu.calibrate import (
+    from hipsc_abm.calibrate import (
         multi_delta_trajectory_squared_error,
         soft_contact_count,
     )
@@ -435,11 +434,11 @@ def test_ensemble_trajectory_loss_on_replicate_mean():
     floors at the across-replicate variance. This gap is why the joint
     calibration showcase needs the wrapper: a multi-run-average target
     cannot be matched below single-seed noise by per-replicate losses."""
-    from hipsc_abm_tpu.calibrate import ensemble_trajectory
-    from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+    from hipsc_abm.calibrate import ensemble_trajectory
+    from hipsc_abm.parallel.ensemble import EnsembleEngine
 
     horizon, seeds = 3, [0, 1, 2]
-    eng_t = HipscEngine(GEN, XP, use_pallas=False)
+    eng_t = HipscEngine(GEN, XP)
     ens_t = EnsembleEngine(eng_t)
     st = ens_t.init_states(seeds=seeds)
     courses = []
@@ -453,7 +452,7 @@ def test_ensemble_trajectory_loss_on_replicate_mean():
     target_mean = course.mean(axis=1)
 
     def eval_loss(loss_fn):
-        eng = HipscEngine(GEN, XP, use_pallas=False)
+        eng = HipscEngine(GEN, XP)
         cal = Calibrator(eng, ["adhesion_const"], loss_fn, horizon=horizon)
         state = cal.prepare(EnsembleEngine(eng).init_states(seeds=seeds))
         (val_info, _grad), _ = cal._eval_with_growth(0, cal.theta0(), state)
@@ -478,8 +477,8 @@ def test_grad_path_never_traces_dense_physics():
     shape (capacity 1536 x 32 replicates). Forward-only population
     evaluations (ES, landscape probes) keep the dense path, where it is
     the measured throughput win."""
-    import hipsc_abm_tpu.engine as engine_mod
-    from hipsc_abm_tpu.calibrate import (
+    import hipsc_abm.engine as engine_mod
+    from hipsc_abm.calibrate import (
         Calibrator,
         radius_of_gyration,
         squared_error,
@@ -534,3 +533,30 @@ def test_remat_substeps_is_primal_identical_and_grad_equal():
         assert float(v0) == float(v1), ("primal changed", dense)
         np.testing.assert_allclose(np.asarray(g0), np.asarray(g1),
                                    rtol=1e-5)
+
+
+def test_soft_contact_count_exact_far_from_origin():
+    """A compact colony ~10^4 um from the origin: the Gram identity's
+    |x|^2 terms would cancel away every f32 digit of a 10 um distance, so
+    positions are centered first; the statistic must match brute force."""
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+
+    from hipsc_abm.calibrate import soft_contact_count
+
+    rng = np.random.default_rng(0)
+    n, cap = 200, 256
+    locs = np.zeros((cap, 3), np.float32)
+    locs[:n, :2] = 1.2e4 + rng.random((n, 2)) * 120.0
+    locs[n:] = 7.0  # dead slots
+    alive = np.arange(cap) < n
+    state = SimpleNamespace(arrays={"locations": jnp.asarray(locs)},
+                            alive=jnp.asarray(alive))
+    got = float(soft_contact_count(10.0, 1.0)(state))
+    lx = locs[:n].astype(np.float64)
+    d = np.sqrt(((lx[:, None, :] - lx[None, :, :]) ** 2).sum(-1) + 1e-12)
+    gate = 1.0 / (1.0 + np.exp(np.minimum(d - 10.0, 700.0)))
+    np.fill_diagonal(gate, 0.0)
+    np.testing.assert_allclose(got, gate.sum(axis=1).mean(), rtol=2e-4)
+    assert got > 0.5

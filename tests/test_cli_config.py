@@ -5,8 +5,10 @@ import os
 import pytest
 import yaml
 
-from hipsc_abm_tpu.utils import cli
-from hipsc_abm_tpu.utils.config import check_direct, check_output_dir, template_params
+from hipsc_abm.utils import cli
+from hipsc_abm.utils.config import check_direct, check_output_dir, template_params
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_commandline_param():
@@ -62,7 +64,7 @@ def test_template_params_and_output_dir(tmp_path, monkeypatch):
 
 
 def test_params_dataclass_roundtrip():
-    from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
+    from hipsc_abm.models.params import ExperimentalParams, GeneralParams
 
     g = GeneralParams.from_dict({
         "num_to_start": 10, "cuda": False, "end_step": 5, "size": [100, 100, 0],
@@ -75,3 +77,51 @@ def test_params_dataclass_roundtrip():
         "dox_step": 9, "guye_move": False, "lonely_thresh": 1, "color_mode": False,
     })
     assert x.dox_step == 9 and not x.guye_move
+
+
+_EXAMPLE_YAML = sorted(
+    os.path.relpath(os.path.join(d, f), _REPO)
+    for d, _, files in os.walk(os.path.join(_REPO, "examples"))
+    for f in files if f.endswith(".yaml")
+)
+
+
+@pytest.mark.parametrize("relpath", _EXAMPLE_YAML)
+def test_builtin_yaml_reader_matches_pyyaml(relpath):
+    """The built-in reader equals ``yaml.safe_load`` on every shipped
+    template (the engine needs no PyYAML)."""
+    from hipsc_abm.utils.config import load_flat_yaml
+
+    with open(os.path.join(_REPO, relpath)) as f:
+        text = f.read()
+    assert load_flat_yaml(text) == yaml.safe_load(text)
+
+
+def _cache_dir_in_fresh_process(env_value):
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    if env_value is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = env_value
+    code = ("import jax\n"
+            "from hipsc_abm.utils.config import ensure_compilation_cache\n"
+            "ensure_compilation_cache()\n"
+            "print(jax.config.jax_compilation_cache_dir)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def test_compile_cache_honours_env(tmp_path):
+    want = str(tmp_path / "cache")
+    assert _cache_dir_in_fresh_process(want) == want
+
+
+def test_compile_cache_defaults_to_checkout():
+    from hipsc_abm.utils.config import DEFAULT_CACHE_DIR
+
+    assert DEFAULT_CACHE_DIR == os.path.join(_REPO, ".jax_cache")
+    assert _cache_dir_in_fresh_process(None) == DEFAULT_CACHE_DIR

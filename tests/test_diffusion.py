@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hipsc_abm_tpu.ops import diffusion as dops
+from hipsc_abm.ops import diffusion as dops
 
 
 def numpy_ftcs(grid, dts, D, h2, cmax, degradation):
@@ -108,7 +108,7 @@ def test_deposit_out_of_bounds_dropped():
 
 
 def test_stability_limit_helper():
-    from hipsc_abm_tpu.models.params import DiffusionParams
+    from hipsc_abm.models.params import DiffusionParams
 
     p = DiffusionParams(spat_res=10.0, diffuse_const=2.0)
     assert p.stability_limit() == 100.0 / 8.0
@@ -120,8 +120,8 @@ def test_field_coupled_pathway_drives_fate():
     morphogen field at the cell's nearest diffusion point (the reference's
     ``get_concentration`` semantics, ``cell_methods.py:470-483``) — cell
     fate must respond to the field, and uptake must drain it."""
-    from hipsc_abm_tpu.engine import HipscEngine
-    from hipsc_abm_tpu.models.params import (
+    from hipsc_abm.engine import HipscEngine
+    from hipsc_abm.models.params import (
         DiffusionParams, ExperimentalParams, GeneralParams,
     )
 
@@ -133,8 +133,7 @@ def test_field_coupled_pathway_drives_fate():
                                max_concentration=5.0, degradation=0.0,
                                release_amount=0.0, uptake_amount=uptake,
                                field_coupling=True)
-        eng = HipscEngine(gen, xp, diff=diff, enable_diffusion=True,
-                          use_pallas=False)
+        eng = HipscEngine(gen, xp, diff=diff, enable_diffusion=True)
         state = eng.init_state(seed=7)
         state = state._replace(gradients={
             "fgf4_values": jnp.full_like(state.gradients["fgf4_values"], initial)
@@ -160,58 +159,41 @@ def test_field_coupled_pathway_drives_fate():
     )
 
 
-def test_ftcs_pallas_interpret_matches_xla():
-    """The VMEM-resident multi-subcycle Mosaic kernel (interpret mode)
-    matches the XLA subcycle scan to ulp-level tolerance: same sequential
-    edge-reflection order, same stencil operand association, same trailing
-    short substep — residual diffs are backend fusion (FMA) only."""
-    from hipsc_abm_tpu.ops.diffusion import diffusion_dts, ftcs_diffuse
-    from hipsc_abm_tpu.ops.pallas_diffusion import (
-        fits_vmem,
-        ftcs_diffuse_pallas,
-    )
-
-    rng = np.random.default_rng(0)
-    g = jnp.asarray(rng.random((97, 83)).astype(np.float32)) * 3.0
-    dts = diffusion_dts(39.0, 6.0)  # 6 full subcycles + remainder 3.0
-    assert fits_vmem(g.shape)
-    a = ftcs_diffuse(g, jnp.asarray(dts), 2.0, 400.0, 2.0, 0.1)
-    b = ftcs_diffuse_pallas(g, dts, 2.0, 400.0, 2.0, 0.1, interpret=True)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=1e-5)
-    # a lattice too big for VMEM is rejected by the eligibility check
-    assert not fits_vmem((2000, 2000))
+def _deposit_case(seed=0, n=3000, shape=(40, 30), h=10.0):
+    rng = np.random.default_rng(seed)
+    locs = np.zeros((n, 3), np.float32)
+    locs[:, 0] = rng.random(n) * shape[0] * h
+    locs[:, 1] = rng.random(n) * shape[1] * h
+    amounts = (rng.random(n) - 0.3).astype(np.float32)
+    grid = rng.random(shape).astype(np.float32)
+    return grid, locs, amounts, h
 
 
-def test_ftcs_pallas_schedule_guards():
-    """The kernel validates its static-schedule assumption instead of
-    silently diffusing with wrong coefficients, degrades like the XLA scan
-    on an empty schedule, and sizes VMEM eligibility by element width."""
-    import pytest
+def test_deposit_bitwise_invariant_under_agent_permutation():
+    """The deposit's per-point sums do not depend on agent order (a float
+    scatter-add's do, through atomics on the GPU)."""
+    grid, locs, amounts, h = _deposit_case()
+    perm = np.random.default_rng(1).permutation(len(locs))
+    a = np.asarray(dops.deposit_morphogen(jnp.asarray(grid), jnp.asarray(locs),
+                                          jnp.asarray(amounts), h))
+    b = np.asarray(dops.deposit_morphogen(jnp.asarray(grid), jnp.asarray(locs[perm]),
+                                          jnp.asarray(amounts[perm]), h))
+    np.testing.assert_array_equal(a, b)
 
-    from hipsc_abm_tpu.ops.diffusion import ftcs_diffuse
-    from hipsc_abm_tpu.ops.pallas_diffusion import (
-        fits_vmem,
-        ftcs_diffuse_pallas,
-    )
 
-    rng = np.random.default_rng(1)
-    g = jnp.asarray(rng.random((33, 29)).astype(np.float32)) * 3.0
-
-    # empty schedule: clip + degradation only, both implementations
-    a = ftcs_diffuse(g, jnp.zeros((0,)), 2.0, 400.0, 2.0, 0.1)
-    b = ftcs_diffuse_pallas(g, np.zeros((0,)), 2.0, 400.0, 2.0, 0.1,
-                            interpret=True)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # non-uniform schedules (legal for the XLA scan) are rejected loudly
-    with pytest.raises(ValueError, match="diffusion_dts-shaped"):
-        ftcs_diffuse_pallas(g, np.asarray([0.5, 0.3, 0.2]), 2.0, 400.0,
-                            2.0, 0.1, interpret=True)
-
-    # the hardware-probed eligibility boundary: the 500k bench lattice
-    # (1001^2) is in, 1102^2 (which crashed the Mosaic stack allocator) is
-    # out, and the element width is accounted for, not hardcoded f32
-    assert fits_vmem((1001, 1001), 4)
-    assert not fits_vmem((1100, 1100), 4)
-    assert fits_vmem((750, 750), 4)
-    assert not fits_vmem((750, 750), 8)
+def test_deposit_matches_float64_reference():
+    """Against a float64 numpy deposit of the same rule: tolerance 1e-5 of
+    the largest |value| — f32 sums of a few dozen O(1) shares per point."""
+    grid, locs, amounts, h = _deposit_case(seed=2)
+    got = np.asarray(dops.deposit_morphogen(jnp.asarray(grid), jnp.asarray(locs),
+                                            jnp.asarray(amounts), h))
+    want = grid.astype(np.float64)
+    nx, ny = grid.shape
+    for (x, y, _), amt in zip(locs.astype(np.float64), amounts.astype(np.float64)):
+        bx, by = int(np.floor(x / h)), int(np.floor(y / h))
+        pts = [(bx + dx, by + dy) for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1))
+               if bx + dx < nx and by + dy < ny
+               and np.hypot(x - (bx + dx) * h, y - (by + dy) * h) < h]
+        for px, py in pts:
+            want[px, py] += amt / len(pts)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())

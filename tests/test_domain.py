@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu.models.params import BiologyParams
-from hipsc_abm_tpu.ops.jkr import _pair_jkr
-from hipsc_abm_tpu.parallel.domain import (
+from hipsc_abm.models.params import BiologyParams
+from hipsc_abm.ops.jkr import _pair_jkr
+from hipsc_abm.parallel.domain import (
     domain_forces,
     make_stripe_mesh,
     partition_by_stripe,

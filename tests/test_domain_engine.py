@@ -6,20 +6,14 @@ windows + identical id-keyed randomness => own-row dynamics bit-equal to
 ``HipscEngine``. Agents are compared BY ID — slot layouts differ by design.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu.engine import HipscEngine
-from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
-from hipsc_abm_tpu.parallel.domain_engine import (
-    AXIS,
-    DomainHipscEngine,
-    DomainStepInfo,
-)
+from hipsc_abm.engine import HipscEngine
+from hipsc_abm.models.params import ExperimentalParams, GeneralParams
+from hipsc_abm.parallel.domain_engine import DomainHipscEngine
 
 requires_multi = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs the 8-device CPU mesh"
@@ -54,7 +48,7 @@ def make_engines(n=1200, gata6=120, box=1600.0, steps_dox=2, **dom_kwargs):
     gen = GeneralParams(num_to_start=n, end_step=8, size=(box, box, 0.0))
     xp = ExperimentalParams(num_gata6=gata6, dox_step=steps_dox)
     dom = DomainHipscEngine(gen, xp, **dom_kwargs)
-    single = HipscEngine(gen, xp, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=dom.cfg.base)
     return dom, single
 
 
@@ -80,7 +74,7 @@ def test_domain_step_runs():
 @requires_multi
 def test_domain_matches_single_engine_multistep():
     """Bit-for-ints, exactly-for-floats over a multi-step colony run with
-    division + death + fate dynamics (VERDICT round-1 item 1)."""
+    division + death + fate dynamics."""
     dom, single = make_engines()
     dstate = dom.init_state(seed=11)
     # byte-identical initial colony, flat layout
@@ -197,41 +191,10 @@ def test_domain_collectives_are_boundary_sized():
 
 @requires_multi
 @pytest.mark.slow
-def test_domain_pallas_matches_domain_xla():
-    """Per-shard Pallas contact kernel (interpret mode) under shard_map
-    agrees with the domain XLA window path (VERDICT round-1 item 5a:
-    multi-chip keeps the fused-kernel win)."""
-    dom_x, _ = make_engines(n=900, gata6=90, box=1400.0)
-    dom_p, _ = make_engines(
-        n=900, gata6=90, box=1400.0, use_pallas=True, pallas_interpret=True
-    )
-    assert dom_p.cfg.base.use_pallas
-    sx = dom_x.init_state(seed=5)
-    sp = dom_p.init_state(seed=5)
-    for _ in range(3):
-        sx, ix = dom_x.safe_step(sx)
-        sp, ip = dom_p.safe_step(sp)
-        assert int(ix.num_added) == int(ip.num_added)
-
-    a = by_id(dom_x.to_cell_state(sx))
-    b = by_id(dom_p.to_cell_state(sp))
-    np.testing.assert_array_equal(a["ids"], b["ids"])
-    for k in ("GATA6", "NANOG", "states", "div_counters", "death_counters"):
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    # chunked span accumulation reorders f32 force sums; tolerance covers
-    # a few ulps at the ~1e3-um coordinate scale
-    np.testing.assert_allclose(a["locations"], b["locations"], atol=1e-3)
-    bs_x = bond_sets(dom_x.to_cell_state(sx))
-    bs_p = bond_sets(dom_p.to_cell_state(sp))
-    assert bs_x == bs_p
-
-
-@requires_multi
-@pytest.mark.slow
 def test_domain_diffusion_and_optional_phases_match_single():
     """Domain engine with morphogen diffusion (psum'd deposits) and the
     config-enabled optional phases agrees with the single-chip engine."""
-    from hipsc_abm_tpu.models.params import DiffusionParams
+    from hipsc_abm.models.params import DiffusionParams
 
     gen = GeneralParams(num_to_start=700, end_step=8, size=(1400.0, 1400.0, 0.0))
     xp = ExperimentalParams(num_gata6=70, dox_step=1)
@@ -241,7 +204,7 @@ def test_domain_diffusion_and_optional_phases_match_single():
     flags = dict(enable_diffusion=True, enable_growth=True,
                  enable_stochastic=True, enable_diff_surround=True)
     dom = DomainHipscEngine(gen, xp, diff=diff, **flags)
-    single = HipscEngine(gen, xp, diff=diff, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, diff=diff, cfg=dom.cfg.base)
 
     dstate = dom.init_state(seed=23)
     sstate = single.init_state(seed=23)
@@ -273,7 +236,7 @@ def test_domain_field_coupling_and_uptake_match_single():
     uptake agree between the domain engine and the single-chip engine: the
     lattice is replicated, locations are global, and the pathway noise is
     id-keyed, so the nearest-gridpoint sample is identical on every stripe."""
-    from hipsc_abm_tpu.models.params import DiffusionParams
+    from hipsc_abm.models.params import DiffusionParams
 
     gen = GeneralParams(num_to_start=700, end_step=8, size=(1400.0, 1400.0, 0.0))
     xp = ExperimentalParams(num_gata6=70, dox_step=1)
@@ -282,7 +245,7 @@ def test_domain_field_coupling_and_uptake_match_single():
                            release_amount=0.02, uptake_amount=0.004,
                            field_coupling=True)
     dom = DomainHipscEngine(gen, xp, diff=diff, enable_diffusion=True)
-    single = HipscEngine(gen, xp, diff=diff, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, diff=diff, cfg=dom.cfg.base)
 
     dstate = dom.init_state(seed=29)
     sstate = single.init_state(seed=29)
@@ -343,7 +306,7 @@ def test_domain_checkpoint_resume_bit_exact(tmp_path):
 
 @requires_multi
 def test_domain_soak_20_steps_with_growth_events():
-    """Long soak (VERDICT r2 weak item 3): 20 steps at colony density with
+    """Long soak: 20 steps at colony density with
     deliberately undersized halo/migration/drift capacities, so the run must
     pass through several Verlet rebuilds, per-step migrations, and at least
     one probe-driven growth of halo_cap / mig_cap / drift_allowance — and
@@ -353,7 +316,7 @@ def test_domain_soak_20_steps_with_growth_events():
     dom = DomainHipscEngine(
         gen, xp, halo_cap=64, mig_cap=8, drift_allowance=4.0,
     )
-    single = HipscEngine(gen, xp, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=dom.cfg.base)
 
     dstate = dom.init_state(seed=5)
     sstate = single.init_state(seed=5)
@@ -404,14 +367,14 @@ def test_domain_mig_too_far_raises():
 
 @requires_multi
 def test_domain_matches_single_engine_3d():
-    """3D domain decomposition (VERDICT r2 missing item 3): x-stripes of y-z
+    """3D domain decomposition: x-stripes of y-z
     slabs, 9-run stencils per shard. Multi-step colony run with division and
     death must stay bit-exact against the single-chip engine, and migration
     must occur across slab boundaries."""
     gen = GeneralParams(num_to_start=900, end_step=8, size=(900.0, 300.0, 300.0))
     xp = ExperimentalParams(num_gata6=90, dox_step=2)
     dom = DomainHipscEngine(gen, xp, n_stripes=4)
-    single = HipscEngine(gen, xp, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=dom.cfg.base)
 
     dstate = dom.init_state(seed=17)
     sstate = single.init_state(seed=17)
@@ -430,55 +393,6 @@ def test_domain_matches_single_engine_3d():
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert bond_sets(dom.to_cell_state(dstate)) == bond_sets(sstate)
     assert migrations > 0
-
-
-@requires_multi
-def test_grown_cfg_span_quantum_and_pallas_fallback():
-    """Span growth keeps the pallas_chunk-divisibility invariant (a
-    non-multiple span collapses effective_chunk to one whole-span chunk in
-    the mask kernels, and the 9-run 3D staging scratch then blows VMEM) and
-    extreme growth flips the per-tile scan to the XLA path — the VMEM /
-    mask-HBM guards mirroring the single-chip ``engine._grown_cfg``."""
-    dom, _ = make_engines(
-        n=300, gata6=30, box=900.0, use_pallas=True, pallas_interpret=True
-    )
-    cfg = dom.cfg
-    # capacity 256-aligned so a capacity-clamped span stays chunk-divisible
-    assert cfg.base.capacity % 256 == 0
-    q = max(cfg.base.pallas_chunk, 128)
-    zeros = DomainStepInfo(*[np.int32(0)] * len(DomainStepInfo._fields))
-
-    grown = dom._grown_cfg(
-        cfg, zeros._replace(jkr_span_needed=np.int32(cfg.base.jkr_span + 1))
-    )
-    assert grown is not None and grown.base.use_pallas
-    assert grown.base.jkr_span > cfg.base.jkr_span
-    assert grown.base.jkr_span % q == 0
-
-    wide = dom._grown_cfg(cfg, zeros._replace(jkr_span_needed=np.int32(9000)))
-    assert wide is not None and not wide.base.use_pallas
-
-    degree = dom._grown_cfg(cfg, zeros._replace(jkr_max_degree=np.int32(40)))
-    assert degree is not None and not degree.base.use_pallas
-
-
-@requires_multi
-def test_domain_single_substep_schedule_pallas():
-    """step_dt <= move_dt gives a one-entry physics schedule; the domain
-    Pallas scan peels substep 0 and must give every probe column its entry
-    element (jnp.max has no identity on a zero-size array)."""
-    from hipsc_abm_tpu.models.params import BiologyParams
-
-    gen = GeneralParams(num_to_start=300, end_step=3, size=(900.0, 900.0, 0.0))
-    xp = ExperimentalParams(num_gata6=30, dox_step=1)
-    bio = BiologyParams(step_dt=100.0, move_dt=200.0)
-    dom = DomainHipscEngine(gen, xp, bio=bio, use_pallas=True,
-                            pallas_interpret=True)
-    state = dom.init_state(seed=3)
-    state, info = dom.safe_step(state)
-    assert int(info.num_agents) > 0
-    flat = dom.to_cell_state(state)
-    assert np.isfinite(np.asarray(flat.arrays["locations"])).all()
 
 
 @requires_multi

@@ -51,7 +51,7 @@ def by_id(state):
 @requires_multi
 @pytest.mark.slow
 def test_domain_lifecycle_outputs_and_continuation(tmp_path, monkeypatch):
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     write_templates(tmp_path, domain_tiles=[2, 2])
     monkeypatch.chdir(tmp_path)
@@ -71,7 +71,7 @@ def test_domain_lifecycle_outputs_and_continuation(tmp_path, monkeypatch):
     assert os.path.isfile(os.path.join(base, "dl_video.mp4"))
 
     # the npz carries the domain config for engine-level resume
-    from hipsc_abm_tpu.utils.checkpoint import load_state
+    from hipsc_abm.utils.checkpoint import load_state
 
     _, meta = load_state(os.path.join(base, "dl_state.npz"))
     assert "domain_config" in meta and meta["domain_config"]["n_ty"] == 2
@@ -87,7 +87,7 @@ def test_domain_lifecycle_outputs_and_continuation(tmp_path, monkeypatch):
 def test_domain_lifecycle_matches_single_chip(tmp_path, monkeypatch):
     """The tile-decomposed lifecycle produces the IDENTICAL colony to the
     single-chip lifecycle — same seed, same steps, bit-equal by agent id."""
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     monkeypatch.chdir(tmp_path)
     out = tmp_path / "outputs"
@@ -113,7 +113,7 @@ def test_domain_lifecycle_npz_resume_without_pickle(tmp_path, monkeypatch):
     """A tile-decomposed production run with temp_pickle: false resumes in
     mode 1 from the npz checkpoint alone: the domain engine is rebuilt from
     the saved domain_config and the state re-partitioned."""
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     write_templates(tmp_path, domain_tiles=[2, 2], end_step=2)
     import yaml as _yaml
@@ -141,7 +141,7 @@ def test_domain_lifecycle_npz_resume_without_pickle(tmp_path, monkeypatch):
 @requires_multi
 def test_domain_tiles_scalar_means_stripes(tmp_path, monkeypatch):
     """``domain_tiles: 2`` (an int) is 2 x-stripes."""
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     write_templates(tmp_path, domain_tiles=2, end_step=1)
     monkeypatch.chdir(tmp_path)
@@ -163,7 +163,7 @@ def test_elastic_mode1_resume_across_decompositions(tmp_path, monkeypatch):
     run recovery path at the CLI surface."""
     import yaml as _yaml
 
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     monkeypatch.chdir(tmp_path)
     out = tmp_path / "outputs"
@@ -213,20 +213,20 @@ def test_elastic_chain_multi_hop_bit_exact(tmp_path):
     Elasticity composes: any checkpoint resumes anywhere, repeatedly."""
     import dataclasses
 
-    from hipsc_abm_tpu.engine import HipscEngine, config_to_meta
-    from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
-    from hipsc_abm_tpu.parallel.domain_engine import (
+    from hipsc_abm.engine import HipscEngine, config_to_meta
+    from hipsc_abm.models.params import ExperimentalParams, GeneralParams
+    from hipsc_abm.parallel.domain_engine import (
         DomainHipscEngine,
         domain_config_from_meta,
     )
-    from hipsc_abm_tpu.utils.checkpoint import load_state, save_state
+    from hipsc_abm.utils.checkpoint import load_state, save_state
 
     gen = GeneralParams(num_to_start=900, end_step=12,
                         size=(1500.0, 1500.0, 0.0))
     xp = ExperimentalParams(num_gata6=90, dox_step=2)
 
-    dom0 = DomainHipscEngine(gen, xp, tiles=(2, 2), use_pallas=False)
-    ref = HipscEngine(gen, xp, cfg=dom0.cfg.base, use_pallas=False)
+    dom0 = DomainHipscEngine(gen, xp, tiles=(2, 2))
+    ref = HipscEngine(gen, xp, cfg=dom0.cfg.base)
     ref.cfg = dom0.cfg.base
     rstate = ref.init_state(seed=9)
     for _ in range(12):
@@ -237,7 +237,7 @@ def test_elastic_chain_multi_hop_bit_exact(tmp_path):
         d, _ = dom0.safe_step(d)
     dom0.save_checkpoint(str(tmp_path / "ck1"), d)
 
-    dom1 = DomainHipscEngine(gen, xp, tiles=(4, 2), use_pallas=False)
+    dom1 = DomainHipscEngine(gen, xp, tiles=(4, 2))
     d = dom1.load_checkpoint(str(tmp_path / "ck1"), elastic=True)
     for _ in range(3):
         d, _ = dom1.safe_step(d)
@@ -245,7 +245,7 @@ def test_elastic_chain_multi_hop_bit_exact(tmp_path):
 
     flat, meta = load_state(str(tmp_path / "ck2"))
     cfg = domain_config_from_meta(meta["domain_config"]).base
-    single = HipscEngine(gen, xp, cfg=cfg, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=cfg)
     single.cfg = dataclasses.replace(cfg, capacity=int(flat.alive.shape[0]))
     s = flat
     for _ in range(3):
@@ -253,7 +253,7 @@ def test_elastic_chain_multi_hop_bit_exact(tmp_path):
     save_state(str(tmp_path / "ck3"), s,
                meta={"engine_config": config_to_meta(single.cfg)})
 
-    dom2 = DomainHipscEngine(gen, xp, tiles=(2, 2), use_pallas=False)
+    dom2 = DomainHipscEngine(gen, xp, tiles=(2, 2))
     d = dom2.load_checkpoint(str(tmp_path / "ck3"), elastic=True)
     for _ in range(3):
         d, dinfo = dom2.safe_step(d)
@@ -272,7 +272,7 @@ def test_domain_lifecycle_output_interval_blocks(tmp_path, monkeypatch):
     """`output_interval: k` + `domain_tiles`: the multi-chip lifecycle runs
     device-resident blocks (DomainHipscEngine.run_steps) between outputs —
     same colony as per-step, outputs on block boundaries only."""
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     write_templates(tmp_path, domain_tiles=[2, 2], end_step=4)
     gen_path = tmp_path / "templates" / "general.yaml"

@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu.engine import HipscEngine
-from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
-from hipsc_abm_tpu.parallel.domain_engine import DomainHipscEngine
+from hipsc_abm.engine import HipscEngine
+from hipsc_abm.models.params import ExperimentalParams, GeneralParams
+from hipsc_abm.parallel.domain_engine import DomainHipscEngine
 
 from tests.test_domain_engine import bond_sets, by_id
 
@@ -31,7 +31,7 @@ def make_engines(tiles, n=1200, gata6=120, box=1600.0, steps_dox=2,
     gen = GeneralParams(num_to_start=n, end_step=8, size=size)
     xp = ExperimentalParams(num_gata6=gata6, dox_step=steps_dox)
     dom = DomainHipscEngine(gen, xp, tiles=tiles, **dom_kwargs)
-    single = HipscEngine(gen, xp, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=dom.cfg.base)
     return dom, single
 
 
@@ -179,7 +179,7 @@ def test_tiles_3d_match_single():
     gen = GeneralParams(num_to_start=900, end_step=8, size=(700.0, 700.0, 250.0))
     xp = ExperimentalParams(num_gata6=90, dox_step=2)
     dom = DomainHipscEngine(gen, xp, tiles=(2, 2))
-    single = HipscEngine(gen, xp, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=dom.cfg.base)
 
     dstate = dom.init_state(seed=17)
     sstate = single.init_state(seed=17)
@@ -195,33 +195,6 @@ def test_tiles_3d_match_single():
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert bond_sets(dom.to_cell_state(dstate)) == bond_sets(sstate)
-
-
-@requires_multi
-@pytest.mark.slow
-def test_tiles_pallas_matches_tiles_xla():
-    """Per-shard Pallas span-mask kernels (interpret mode) under the 2-D tile
-    decomposition agree with the tile XLA window path."""
-    dom_x, _ = make_engines(tiles=(2, 2), n=900, gata6=90, box=1400.0)
-    dom_p, _ = make_engines(
-        tiles=(2, 2), n=900, gata6=90, box=1400.0,
-        use_pallas=True, pallas_interpret=True,
-    )
-    assert dom_p.cfg.base.use_pallas
-    sx = dom_x.init_state(seed=5)
-    sp = dom_p.init_state(seed=5)
-    for _ in range(3):
-        sx, ix = dom_x.safe_step(sx)
-        sp, ip = dom_p.safe_step(sp)
-        assert int(ix.num_added) == int(ip.num_added)
-
-    a = by_id(dom_x.to_cell_state(sx))
-    b = by_id(dom_p.to_cell_state(sp))
-    np.testing.assert_array_equal(a["ids"], b["ids"])
-    for k in ("GATA6", "NANOG", "states", "div_counters", "death_counters"):
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    np.testing.assert_allclose(a["locations"], b["locations"], atol=1e-3)
-    assert bond_sets(dom_x.to_cell_state(sx)) == bond_sets(dom_p.to_cell_state(sp))
 
 
 @requires_multi
@@ -311,7 +284,7 @@ def test_tiles_soak_with_growth_events():
     dom = DomainHipscEngine(
         gen, xp, tiles=(2, 2), halo_cap=64, mig_cap=8, drift_allowance=4.0,
     )
-    single = HipscEngine(gen, xp, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=dom.cfg.base)
 
     dstate = dom.init_state(seed=5)
     sstate = single.init_state(seed=5)
@@ -440,43 +413,10 @@ def test_sharded_checkpoint_resume_bit_exact(tmp_path):
 
 @requires_multi
 @pytest.mark.slow
-def test_tiles_pallas_with_diffusion_matches_xla():
-    """The VMEM-resident FTCS kernel dispatched INSIDE shard_map (per-tile
-    replica) agrees with the XLA-scan domain path, gradients included."""
-    from hipsc_abm_tpu.models.params import DiffusionParams
-
-    gen = GeneralParams(num_to_start=700, end_step=8, size=(1400.0, 1400.0, 0.0))
-    xp = ExperimentalParams(num_gata6=70, dox_step=1)
-    diff = DiffusionParams(spat_res=25.0, diffuse_dt=6.0, diffuse_const=2.0,
-                           max_concentration=2.0, degradation=0.1,
-                           release_amount=0.02)
-    dom_x = DomainHipscEngine(gen, xp, diff=diff, tiles=(2, 2),
-                              enable_diffusion=True)
-    dom_p = DomainHipscEngine(gen, xp, diff=diff, tiles=(2, 2),
-                              enable_diffusion=True,
-                              use_pallas=True, pallas_interpret=True)
-    sx = dom_x.init_state(seed=5)
-    sp = dom_p.init_state(seed=5)
-    for _ in range(2):
-        sx, _ = dom_x.safe_step(sx)
-        sp, _ = dom_p.safe_step(sp)
-
-    gx = np.asarray(sx.gradients["fgf4_values"])
-    gp = np.asarray(sp.gradients["fgf4_values"])
-    assert gx.max() > 0
-    np.testing.assert_allclose(gx, gp, atol=1e-5)
-    a = by_id(dom_x.to_cell_state(sx))
-    b = by_id(dom_p.to_cell_state(sp))
-    np.testing.assert_array_equal(a["ids"], b["ids"])
-    np.testing.assert_allclose(a["locations"], b["locations"], atol=1e-3)
-
-
-@requires_multi
-@pytest.mark.slow
 def test_tiles_optional_phases_and_diffusion_match_single():
     """Growth (per-agent radii through the halo packs), stochastic updates,
     diff_surround, and diffusion all stay bit-exact under a 2-D tile grid."""
-    from hipsc_abm_tpu.models.params import DiffusionParams
+    from hipsc_abm.models.params import DiffusionParams
 
     gen = GeneralParams(num_to_start=700, end_step=8, size=(1400.0, 1400.0, 0.0))
     xp = ExperimentalParams(num_gata6=70, dox_step=1)
@@ -486,7 +426,7 @@ def test_tiles_optional_phases_and_diffusion_match_single():
     flags = dict(enable_diffusion=True, enable_growth=True,
                  enable_stochastic=True, enable_diff_surround=True)
     dom = DomainHipscEngine(gen, xp, diff=diff, tiles=(2, 2), **flags)
-    single = HipscEngine(gen, xp, diff=diff, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, diff=diff, cfg=dom.cfg.base)
 
     dstate = dom.init_state(seed=23)
     sstate = single.init_state(seed=23)
@@ -546,32 +486,6 @@ def test_balanced_bounds_property():
 
 
 @requires_multi
-@pytest.mark.slow
-def test_tiles_3d_pallas_matches_tiles_xla():
-    """3D tiles on the Pallas span path (9-run stencil with BOTH local-axis
-    offsets in the flat run strides) agree with the tile XLA window path."""
-    gen = GeneralParams(num_to_start=600, end_step=8, size=(600.0, 600.0, 220.0))
-    xp = ExperimentalParams(num_gata6=60, dox_step=2)
-    dom_x = DomainHipscEngine(gen, xp, tiles=(2, 2))
-    dom_p = DomainHipscEngine(gen, xp, tiles=(2, 2),
-                              use_pallas=True, pallas_interpret=True)
-    sx = dom_x.init_state(seed=5)
-    sp = dom_p.init_state(seed=5)
-    for _ in range(2):
-        sx, ix = dom_x.safe_step(sx)
-        sp, ip = dom_p.safe_step(sp)
-        assert int(ix.num_added) == int(ip.num_added)
-
-    a = by_id(dom_x.to_cell_state(sx))
-    b = by_id(dom_p.to_cell_state(sp))
-    np.testing.assert_array_equal(a["ids"], b["ids"])
-    for k in ("GATA6", "NANOG", "states", "div_counters"):
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    np.testing.assert_allclose(a["locations"], b["locations"], atol=1e-3)
-    assert bond_sets(dom_x.to_cell_state(sx)) == bond_sets(dom_p.to_cell_state(sp))
-
-
-@requires_multi
 def test_sharded_values_output_matches_flat(tmp_path):
     """Pod-scale value-CSV output: per-tile shards (written from addressable
     shards only, no O(colony) gather) merge into the reference's one-file
@@ -579,7 +493,7 @@ def test_sharded_values_output_matches_flat(tmp_path):
     flat slot order differ by design)."""
     import os
 
-    from hipsc_abm_tpu.utils import io as io_utils
+    from hipsc_abm.utils import io as io_utils
 
     dom, _ = make_engines(tiles=(2, 2), n=900, gata6=90, box=1500.0)
     state = dom.init_state(seed=7)

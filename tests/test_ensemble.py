@@ -9,16 +9,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu.engine import HipscEngine
-from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
-from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+from hipsc_abm.engine import HipscEngine
+from hipsc_abm.models.params import ExperimentalParams, GeneralParams
+from hipsc_abm.parallel.ensemble import EnsembleEngine
 
 
 def make_engine(n=200, num_gata6=20, size=(400.0, 400.0, 0.0), **kw):
     gen = GeneralParams(num_to_start=n, end_step=5, size=size)
     xp_kw = kw.pop("xp", {})
     xp = ExperimentalParams(num_gata6=num_gata6, dox_step=2, **xp_kw)
-    return HipscEngine(gen, xp, use_pallas=False, **kw)
+    return HipscEngine(gen, xp, **kw)
 
 
 def rows_by_id(state):

@@ -5,8 +5,8 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from hipsc_abm_tpu.models import biology
-from hipsc_abm_tpu.ops.integrate import stokes_integrate
+from hipsc_abm.models import biology
+from hipsc_abm.ops.integrate import stokes_integrate
 
 
 def test_velocity_formula_and_units():

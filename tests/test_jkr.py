@@ -5,10 +5,11 @@ import math
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from hipsc_abm_tpu.models.params import BiologyParams
-from hipsc_abm_tpu.ops import neighbors as nbr
-from hipsc_abm_tpu.ops.jkr import BondState, jkr_substep
+from hipsc_abm.models.params import BiologyParams
+from hipsc_abm.ops import neighbors as nbr
+from hipsc_abm.ops.jkr import BondState, jkr_substep
 
 BIO = BiologyParams()
 
@@ -43,7 +44,7 @@ def _jitted_substep(capacity):
     cell = BIO.jkr_radius + 2 * BIO.jkr_break_band + 0.5
     spec = nbr.GridSpec.from_box((100.0, 100.0, 0.0), cell, run_cap=capacity)
 
-    from hipsc_abm_tpu.ops.jkr import pack_physics
+    from hipsc_abm.ops.jkr import pack_physics
 
     @jax.jit
     def run(locs, radii, alive, bonds):
@@ -186,3 +187,23 @@ def test_degree_probe_and_dead_partner_self_clean(rng):
                 f, _ = oracle_pair_force(locs[i], locs[j], 5.0, 5.0)
                 want[i] += f
     np.testing.assert_allclose(forces[: n // 2], want[: n // 2], rtol=2e-4, atol=1e-16)
+
+
+@pytest.mark.parametrize("top_id", [2047, 2049, 65537, (1 << 24) - 2])
+def test_bond_compaction_ids_exact(top_id):
+    """First-k compaction of window candidates keeps partner ids exact at
+    and past 2^11 (where a TF32 contraction would round them) up to the
+    2^24 f32-lane limit, against a numpy reference."""
+    from hipsc_abm.ops.jkr import window_mask_to_bonds
+
+    rng = np.random.default_rng(top_id % 1000)
+    C, W, K = 64, 24, 8
+    cand = (top_id - rng.integers(0, 5000, (C, W))).astype(np.float32)
+    mask = rng.random((C, W)) < 0.3
+    bonds, degree = window_mask_to_bonds(jnp.asarray(cand), jnp.asarray(mask), K)
+    partners, keep = np.asarray(bonds.partners), np.asarray(bonds.mask)
+    for r in range(C):
+        want = cand[r][mask[r]].astype(np.int64)[:K]
+        np.testing.assert_array_equal(keep[r], np.arange(K) < len(want))
+        np.testing.assert_array_equal(partners[r][:len(want)], want)
+    assert int(degree) == int(mask.sum(1).max())

@@ -30,7 +30,7 @@ def model_env(tmp_path, monkeypatch):
 
 
 def test_full_lifecycle(model_env):
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     # --- mode 0: new simulation ---
     sim = CellSimulation.start(model_env, argv=["-n", "lc", "-m", "0"])
@@ -71,7 +71,7 @@ def test_full_lifecycle(model_env):
 
 def test_resume_is_bit_exact(model_env, tmp_path):
     """Interrupted-and-resumed run == uninterrupted run (states identical)."""
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     # uninterrupted 4 steps
     import yaml
@@ -102,7 +102,7 @@ def test_resume_from_npz_without_pickle(model_env):
     """temp_pickle: false drops the reference's per-step pickle (the dominant
     host serialization cost at 500k+); mode 1 then resumes from the bit-exact
     npz state checkpoint and matches the uninterrupted run exactly."""
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     gen = yaml.safe_load(open("templates/general.yaml"))
     gen["temp_pickle"] = False
@@ -137,7 +137,7 @@ def test_output_interval_blocks_match_per_step(tmp_path, monkeypatch):
     outputs) must leave the colony bit-identical to the per-step loop;
     outputs land on block boundaries only."""
     import yaml as _yaml
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     def env(sub, interval):
         root = tmp_path / sub
@@ -188,3 +188,47 @@ def test_output_interval_blocks_match_per_step(tmp_path, monkeypatch):
         header = f.readline().strip().split(",")
     assert header[:4] == ["Step Number", "Number Cells", "Step Time",
                           "Memory (MB)"]
+
+
+_BLOCKED_RUN = r"""
+import os, sys
+for name in ("yaml", "cv2", "PIL", "imageio"):
+    sys.modules[name] = None  # import raises ImportError
+from hipsc_abm.models.hipsc import CellSimulation
+sim = CellSimulation.start(sys.argv[1], argv=["-n", "nb", "-m", "0"])
+print("AGENTS", sim.number_agents)
+"""
+
+
+def test_lifecycle_without_optional_packages(tmp_path):
+    """The main path needs JAX, numpy and the standard library only: with
+    PyYAML, cv2, PIL and imageio unimportable, a run still reads its
+    templates, writes PNG frames and CSVs, and skips only the video."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tdir = tmp_path / "templates"
+    tdir.mkdir()
+    (tdir / "general.yaml").write_text(
+        "num_to_start: 60\ncuda: false\nend_step: 2\nsize: [150, 150, 0]\n"
+        "output_values: true\noutput_images: true\nrecord_initial_step: true\n"
+        "image_quality: 64\nvideo_quality: 32\nfps: 5\nseed: 0\n")
+    (tdir / "experimental.yaml").write_text(
+        "num_gata6: 6\noutput_tda: true\noutput_gradients: false\ngroup: 0\n"
+        "dox_step: 1\nguye_move: true\nlonely_thresh: 2\ncolor_mode: true\n")
+    out = tmp_path / "outputs"
+    out.mkdir()
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(out) + os.sep],
+                          cwd=tmp_path, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "AGENTS" in proc.stdout and "no video encoder" in proc.stdout
+    base = out / "nb"
+    png = (base / "nb_images" / "nb_image_2.png").read_bytes()
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    assert (base / "nb_values" / "nb_values_2.csv").is_file()
+    assert (base / "nb_tda" / "all" / "nb_tda_all_2.csv").is_file()
+    assert not (base / "nb_video.mp4").exists()

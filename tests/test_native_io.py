@@ -1,10 +1,9 @@
 """Native (C++) CSV writer tier: byte parity with the Python writers.
 
 The native tier exists for throughput (Python's csv module costs seconds
-per 500k-agent values CSV and bounds the async output worker — see
-BENCHMARKS.md production-run sections); these tests pin that its output is
-byte-identical, so the fast path can never change the on-disk format the
-reference's consumers parse (reference ``simulation.py:300-347`` /
+per 500k-agent values CSV and bounds the async output worker); these tests
+pin that its output is byte-identical, so the fast path can never change
+the on-disk format the reference's consumers parse (reference ``simulation.py:300-347`` /
 ``cell_outputs.py:102-127``).
 """
 
@@ -15,8 +14,8 @@ import os
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu import native
-from hipsc_abm_tpu.utils import io as io_utils
+from hipsc_abm import native
+from hipsc_abm.utils import io as io_utils
 
 
 def _lib():
@@ -152,3 +151,46 @@ def test_tda_and_gradient_writers_still_work(tmp_path):
     np.testing.assert_allclose(rows, locs[:, :2], rtol=1e-15)
     io_utils.write_gradient_csvs(str(tmp_path), "t", 1, {"fgf4": rng.random((9, 9))})
     assert (tmp_path / "fgf4" / "t_fgf4_1.csv").exists()
+
+
+@pytest.mark.parametrize("nrows", [0, 1, 2, 5, 9, 17, 33])
+def test_matrix_e18_chunking_matches_savetxt(tmp_path, nrows):
+    """Row counts that leave the writer's last ceil-division chunks empty
+    (e.g. 9 rows over 8 threads) must write, not abort the process."""
+    _lib()
+    m = np.random.default_rng(nrows).standard_normal((nrows, 2)) * 1e3
+    pa, pb = tmp_path / "native.csv", tmp_path / "numpy.csv"
+    assert io_utils._native_savetxt_e18(str(pa), m)
+    np.savetxt(pb, m, fmt="%.18e", delimiter=",")
+    assert pa.read_bytes() == pb.read_bytes()
+
+
+def test_png_encoder_round_trips(tmp_path):
+    """The standard-library PNG encoder (used when cv2 is absent) writes a
+    valid 8-bit RGB PNG whose pixels decode back to the BGR input."""
+    import struct
+    import zlib
+
+    img = np.random.default_rng(0).integers(0, 256, (7, 11, 3), dtype=np.uint8)
+    path = tmp_path / "x.png"
+    path.write_bytes(io_utils.encode_png(img))
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF, tag
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + length
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (w, h, depth, color) == (11, 7, 8, 2) and b"IEND" in chunks
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    assert (raw[:, 0] == 0).all()
+    np.testing.assert_array_equal(raw[:, 1:].reshape(h, w, 3)[:, :, ::-1], img)
+    try:
+        import cv2
+    except ImportError:
+        return
+    np.testing.assert_array_equal(cv2.imread(str(path)), img)

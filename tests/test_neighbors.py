@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu.ops import neighbors as nbr
+from hipsc_abm.ops import neighbors as nbr
 
 search = functools.partial(jax.jit, static_argnums=(0, 3))(nbr.neighbor_search)
 

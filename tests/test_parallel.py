@@ -5,9 +5,9 @@ import jax
 import numpy as np
 import pytest
 
-from hipsc_abm_tpu.engine import HipscEngine
-from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
-from hipsc_abm_tpu.parallel.mesh import ShardedHipscEngine, make_mesh, shard_state
+from hipsc_abm.engine import HipscEngine
+from hipsc_abm.models.params import ExperimentalParams, GeneralParams
+from hipsc_abm.parallel.mesh import ShardedHipscEngine, make_mesh, shard_state
 
 
 requires_multi = pytest.mark.skipif(

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import yaml
 
-from hipsc_abm_tpu.simulation import AgentGraph, Simulation
-from hipsc_abm_tpu.utils import io as io_utils
+from hipsc_abm.simulation import AgentGraph, Simulation
+from hipsc_abm.utils import io as io_utils
 
 
 @pytest.fixture
@@ -181,7 +181,7 @@ def test_natural_step_sort():
 def test_stamp_rasterizer_matches_loop_oracle():
     """The vectorized circle stamper reproduces the per-agent overdraw
     rasterizer byte-for-byte (uniform radii, the model default)."""
-    from hipsc_abm_tpu.utils import io as io_utils
+    from hipsc_abm.utils import io as io_utils
 
     rng = np.random.default_rng(9)
     n = 300
@@ -201,7 +201,7 @@ def test_stamp_rasterizer_matches_loop_oracle():
 
 def test_async_output_pipeline_flush():
     """Submitted output tasks complete at flush; worker errors surface."""
-    from hipsc_abm_tpu.utils import io as io_utils
+    from hipsc_abm.utils import io as io_utils
 
     hits = []
     io_utils.submit_output(hits.append, 1)

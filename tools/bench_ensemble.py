@@ -6,11 +6,11 @@ stepped one-at-a-time through the single-colony engine (the reference's
 one-process-per-replicate workflow, minus even its process overhead).
 
 Usage:  PYTHONPATH=. python tools/bench_ensemble.py [R] [steps]
-        (JAX_PLATFORMS=cpu for the CPU backend; default is the real TPU)
+        (JAX_PLATFORMS=cpu for the CPU backend; default is the accelerator)
 
-Prints per-step wall for both paths and the speedup. Run on the TPU, the
-ensemble path is additionally the right shape for the chip: R x 5k cells
-saturates lanes a single 5k colony cannot.
+Prints per-step wall for both paths and the speedup. On an accelerator the
+ensemble path is the right shape: R x 5k cells fills a device that a single
+5k colony cannot. The accelerator side has not been measured yet.
 """
 
 import sys
@@ -21,9 +21,9 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")
 
-from hipsc_abm_tpu.engine import HipscEngine
-from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
-from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+from hipsc_abm.engine import HipscEngine
+from hipsc_abm.models.params import ExperimentalParams, GeneralParams
+from hipsc_abm.parallel.ensemble import EnsembleEngine
 
 
 def force(x):
@@ -36,7 +36,7 @@ def main(R=16, steps=6):
     xp = ExperimentalParams(num_gata6=500, dox_step=5)
 
     # --- ensemble path ------------------------------------------------------
-    ens = EnsembleEngine(HipscEngine(gen, xp, use_pallas=False))
+    ens = EnsembleEngine(HipscEngine(gen, xp))
     states = ens.init_states(seeds=range(R))
     states, _ = ens.safe_step(states)  # warmup: compile + growth
     force(EnsembleEngine.replicate(states, 0))
@@ -49,7 +49,7 @@ def main(R=16, steps=6):
           f"{t_ens * 1e3:.1f} ms/step ({t_ens * 1e3 / R:.2f} ms/replicate)")
 
     # --- sequential path ------------------------------------------------------
-    solo = HipscEngine(gen, xp, use_pallas=False)
+    solo = HipscEngine(gen, xp)
     solo_states = [solo.init_state(seed=s) for s in range(R)]
     # warm up EVERY replicate: the first pass settles any capacity/cap
     # growth (which changes the compiled shape), the repad pass brings all

@@ -31,7 +31,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from hipsc_abm_tpu.calibrate import (
+    from hipsc_abm.calibrate import (
         Calibrator,
         _to_unconstrained,
         ensemble_trajectory,
@@ -39,13 +39,13 @@ def main():
         radius_of_gyration,
         soft_contact_count,
     )
-    from hipsc_abm_tpu.engine import HipscEngine
-    from hipsc_abm_tpu.models.params import (
+    from hipsc_abm.engine import HipscEngine
+    from hipsc_abm.models.params import (
         BiologyParams,
         ExperimentalParams,
         GeneralParams,
     )
-    from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+    from hipsc_abm.parallel.ensemble import EnsembleEngine
 
     with open(TARGET_PATH) as f:
         target = json.load(f)
@@ -59,7 +59,7 @@ def main():
                         size=(side, side, 0.0))
     xp = ExperimentalParams(num_gata6=n // 10, dox_step=5)
     bio = BiologyParams(**TRUE)
-    eng = HipscEngine(gen, xp, bio=bio, use_pallas=False)
+    eng = HipscEngine(gen, xp, bio=bio)
     loss = ensemble_trajectory(multi_delta_trajectory_squared_error([
         (radius_of_gyration,
          np.asarray(target["rg_trajectory_um"], np.float32)),

@@ -1,4 +1,4 @@
-"""Calibration showcase: recover force-scale parameters ON TPU from a
+"""Calibration showcase: recover force-scale parameters on the device from a
 REFERENCE-generated colony.
 
 The reference (ajin40/Python-hiPSC-ABM) has no calibration story at all —
@@ -29,8 +29,7 @@ Stages:
                   the Rg time course from its values CSVs, write
                   ``tools/calibration_target.json``.
   (default)       read the target and fit ``adhesion_const`` then
-                  ``motility_force`` on the default JAX backend (the TPU in
-                  the bench environment), reporting recovered values,
+                  ``motility_force`` on the default JAX backend, reporting recovered values,
                   error vs the reference's true constants, and wall-clock.
 
 Usage:
@@ -144,7 +143,7 @@ def make_target(n_cells: int, steps: int, side: float,
 
 
 # ---------------------------------------------------------------------------
-# fitting (TPU side)
+# fitting (device side)
 # ---------------------------------------------------------------------------
 
 
@@ -155,25 +154,25 @@ def fit_stage(target: dict, param: str, start_factor: float,
 
     import numpy as np
 
-    from hipsc_abm_tpu.calibrate import (
+    from hipsc_abm.calibrate import (
         Calibrator,
         delta_trajectory_squared_error,
         radius_of_gyration,
     )
-    from hipsc_abm_tpu.engine import HipscEngine
-    from hipsc_abm_tpu.models.params import (
+    from hipsc_abm.engine import HipscEngine
+    from hipsc_abm.models.params import (
         BiologyParams,
         ExperimentalParams,
         GeneralParams,
     )
-    from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+    from hipsc_abm.parallel.ensemble import EnsembleEngine
 
     n, side, steps = target["n_cells"], target["side"], target["steps"]
     gen = GeneralParams(num_to_start=n, end_step=steps + 1,
                         size=(side, side, 0.0))
     xp = ExperimentalParams(num_gata6=n // 10, dox_step=5)
     bio = BiologyParams(**{param: TRUE[param] * start_factor})
-    eng = HipscEngine(gen, xp, bio=bio, use_pallas=False)
+    eng = HipscEngine(gen, xp, bio=bio)
 
     loss = delta_trajectory_squared_error(
         radius_of_gyration, np.asarray(target["rg_trajectory_um"],
@@ -222,27 +221,27 @@ def fit_joint(target: dict, start_factor: float, replicates: int,
     (docs/CALIBRATION.md)."""
     import numpy as np
 
-    from hipsc_abm_tpu.calibrate import (
+    from hipsc_abm.calibrate import (
         Calibrator,
         ensemble_trajectory,
         multi_delta_trajectory_squared_error,
         radius_of_gyration,
         soft_contact_count,
     )
-    from hipsc_abm_tpu.engine import HipscEngine
-    from hipsc_abm_tpu.models.params import (
+    from hipsc_abm.engine import HipscEngine
+    from hipsc_abm.models.params import (
         BiologyParams,
         ExperimentalParams,
         GeneralParams,
     )
-    from hipsc_abm_tpu.parallel.ensemble import EnsembleEngine
+    from hipsc_abm.parallel.ensemble import EnsembleEngine
 
     n, side, steps = target["n_cells"], target["side"], target["steps"]
     gen = GeneralParams(num_to_start=n, end_step=steps + 1,
                         size=(side, side, 0.0))
     xp = ExperimentalParams(num_gata6=n // 10, dox_step=5)
     bio = BiologyParams(**{p: TRUE[p] * start_factor for p in TRUE})
-    eng = HipscEngine(gen, xp, bio=bio, use_pallas=False)
+    eng = HipscEngine(gen, xp, bio=bio)
 
     # method of moments: the target is itself a multi-run AVERAGE course,
     # so match it with the replicate-MEAN simulated course (noise shrinks
@@ -291,9 +290,7 @@ def main():
         print(json.dumps(target))
         return
 
-    import jax  # noqa: F401 — default backend (TPU in the bench env)
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/hipsc_jax_cache_tpu")
+    import jax  # noqa: F401 — the default backend
 
     with open(TARGET_PATH) as f:
         target = json.load(f)

@@ -31,14 +31,14 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 
 def ours_trajectory(n, steps, seed):
-    from hipsc_abm_tpu.engine import HipscEngine
-    from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
+    from hipsc_abm.engine import HipscEngine
+    from hipsc_abm.models.params import ExperimentalParams, GeneralParams
 
     side = 2000.0 * (n / 5000.0) ** 0.5
     gen = GeneralParams(num_to_start=n, end_step=steps,
                         size=(side, side, 0.0))
     xp = ExperimentalParams(num_gata6=n // 10, dox_step=5)
-    eng = HipscEngine(gen, xp, use_pallas=False)
+    eng = HipscEngine(gen, xp)
     s = eng.init_state(seed=seed)
     counts = []
     for _ in range(steps):

@@ -1,10 +1,10 @@
 """Multi-controller (multi-host) domain-engine validation payload.
 
-Runs the pod execution model for real: N separate processes (one per
+Runs the multi-host execution model for real: N separate processes (one per
 emulated host, 4 virtual CPU devices each) form one global JAX mesh via
 ``jax.distributed``; the domain engine steps the colony with its tile
 shards spread across processes — ``from_cell_state`` materializes only the
-addressable shards per process, collectives ride the gloo/ICI backend, and
+addressable shards per process, collectives ride the gloo backend, and
 the sharded checkpoint writes per-process shard files. Process 0 then
 reassembles the checkpoint and compares the colony BIT-EXACTLY (by agent
 id) against the single-chip engine's trajectory, which every process also
@@ -15,9 +15,9 @@ Usage (each process):
 
 The pytest wrapper is ``tests/test_multiprocess.py``; it spawns two
 processes and asserts the final "MULTIHOST OK" line. This is the
-executable counterpart of the pod claims in docs/SCALING.md — same code
-path a real multi-host TPU slice would run (jax.distributed.initialize +
-one mesh over all hosts' chips).
+executable counterpart of the multi-host claims in docs/SCALING.md — the
+same code path a real multi-host run takes (jax.distributed.initialize +
+one mesh over all hosts' devices).
 """
 
 import os
@@ -43,9 +43,9 @@ def main(pid: int, nproc: int, port: int, workdir: str) -> None:
     import numpy as np
     from jax.experimental import multihost_utils
 
-    from hipsc_abm_tpu.engine import HipscEngine
-    from hipsc_abm_tpu.models.params import ExperimentalParams, GeneralParams
-    from hipsc_abm_tpu.parallel.domain_engine import DomainHipscEngine
+    from hipsc_abm.engine import HipscEngine
+    from hipsc_abm.models.params import ExperimentalParams, GeneralParams
+    from hipsc_abm.parallel.domain_engine import DomainHipscEngine
 
     gen = GeneralParams(num_to_start=1000, end_step=6, size=(1400.0, 1400.0, 0.0))
     xp = ExperimentalParams(num_gata6=100, dox_step=2)
@@ -56,7 +56,7 @@ def main(pid: int, nproc: int, port: int, workdir: str) -> None:
 
     # reference trajectory: the single-chip engine on this process's own
     # device 0 (every process computes it; determinism makes them agree)
-    single = HipscEngine(gen, xp, cfg=dom.cfg.base, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=dom.cfg.base)
     sstate = single.init_state(seed=11)
     single.cfg = dom.cfg.base
 
@@ -79,7 +79,7 @@ def main(pid: int, nproc: int, port: int, workdir: str) -> None:
     assert len(written) == dom.cfg.n_stripes // nproc  # this process's tiles
     multihost_utils.sync_global_devices("checkpoint written")
     if pid == 0:
-        from hipsc_abm_tpu.utils import io as io_utils
+        from hipsc_abm.utils import io as io_utils
 
         merged = io_utils.merge_sharded_values(vals_dir, "pod", 4,
                                                n_shards=dom.cfg.n_stripes)
@@ -118,7 +118,7 @@ def main(pid: int, nproc: int, port: int, workdir: str) -> None:
     print(f"proc {pid} rebalance + step ok", flush=True)
 
     if pid == 0:
-        from hipsc_abm_tpu.utils import checkpoint as ckpt
+        from hipsc_abm.utils import checkpoint as ckpt
 
         flat, _meta = ckpt.load_domain_sharded(ckpt_dir)
 

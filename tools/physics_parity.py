@@ -7,9 +7,8 @@ stochastic phase: motility force zeroed, division/death/dox thresholds
 pushed out of reach, identical initial positions injected into both sides.
 With those knobs the step is a pure function of positions, so the two
 implementations must track to f32/f64 accumulation error — any systematic
-drift is a physics parity bug (this tool was written to hunt the measured
-~1.25x effective-force displacement of the calibration landscape minimum,
-BENCHMARKS.md "Calibration landscape").
+drift is a physics parity bug (this tool was written to hunt a measured
+~1.25x effective-force displacement of the calibration landscape minimum).
 
 Usage:
   python tools/physics_parity.py [n_cells] [steps] [side]      # compare
@@ -107,8 +106,8 @@ def ours_side(init, steps: int, side: float):
 
     import numpy as np
 
-    from hipsc_abm_tpu.engine import HipscEngine
-    from hipsc_abm_tpu.models.params import (
+    from hipsc_abm.engine import HipscEngine
+    from hipsc_abm.models.params import (
         BiologyParams,
         ExperimentalParams,
         GeneralParams,
@@ -124,7 +123,7 @@ def ours_side(init, steps: int, side: float):
     if os.environ.get("PHYSPAR_STEP_DT"):
         bio = dataclasses.replace(
             bio, step_dt=float(os.environ["PHYSPAR_STEP_DT"]))
-    eng = HipscEngine(gen, xp, bio=bio, use_pallas=False)
+    eng = HipscEngine(gen, xp, bio=bio)
     state = eng.init_state(seed=0, locations=init.astype(np.float32))
     per_step, bonds = [], []
     for _ in range(steps):

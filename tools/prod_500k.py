@@ -3,8 +3,7 @@
 Runs the complete mode-0 lifecycle at 500,000 starting cells — value CSVs,
 step PNGs, TDA splits, npz + pickle checkpoints, data CSV — through the
 async output pipeline, then mode 2 (video assembly). Records wall clock and
-the device-vs-output split in a summary printed at the end (feeds the
-BENCHMARKS.md 500k production section).
+the device-vs-output split in a summary printed at the end.
 
 Usage: python tools/prod_500k.py [steps] [cells]
 """
@@ -16,17 +15,14 @@ import time
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/hipsc_jax_cache_tpu")
-
 STEPS = int(sys.argv[1]) if len(sys.argv) > 1 else 12
 CELLS = int(sys.argv[2]) if len(sys.argv) > 2 else 500_000
 # HIPSC_TEMP_PICKLE=0 drops the per-step pickle (npz mode-1 resume instead)
 TEMP_PICKLE = os.environ.get("HIPSC_TEMP_PICKLE", "1") != "0"
 # HIPSC_OUTPUT_INTERVAL=k runs device-resident k-step blocks between outputs
 OUTPUT_INTERVAL = int(os.environ.get("HIPSC_OUTPUT_INTERVAL", "1"))
-ROOT = "/tmp/prod500k"
+ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    ".chip_smoke", "prod500k")
 NAME = "p500"
 
 
@@ -65,7 +61,7 @@ def main():
         shutil.rmtree(f"{ROOT}/outputs/{NAME}")
     write_templates()
     os.chdir(ROOT)
-    from hipsc_abm_tpu.models.hipsc import CellSimulation
+    from hipsc_abm.models.hipsc import CellSimulation
 
     t0 = time.perf_counter()
     sim = CellSimulation.start(f"{ROOT}/outputs/", argv=["-n", NAME, "-m", "0"])

@@ -1,29 +1,14 @@
-"""Measured ceiling for contact-window carryover (VERDICT r4 next #4).
+"""What the contact window's rebuilds cost inside one step.
 
-The round-4 README named "persistent-grid carryover between substeps" as
-the remaining structural lever. WITHIN a step that carryover already
-exists (`engine._physics_scan_pallas`: the sorted layout, span plan, and
-span-mask bonds ride the 11-substep scan carry; a `lax.cond` rebuilds only
-when drift crosses skin/2). The un-carried rebuild is the one at the STEP
-boundary: every `hipsc_step` re-sorts, re-plans, re-seeds at scan entry
-and compacts the mask back to slot ids at scan exit, even if the previous
-step's window were still Verlet-valid.
-
-This tool measures what removing each piece could buy, and why the
-cross-step variant cannot fire in the flagship model:
-
-1. division clocks are uniform over [0, 36) (reference
-   `cell_simulation.py:146`), so ~n/36 agents divide EVERY step at every
-   scale (printed below from the step probes) — membership changes at
-   every step boundary, which invalidates any carried sorted window (a
-   daughter must occupy a sorted row and appear in neighbors' spans;
-   appending outside the span structure breaks the contiguous-run
-   invariant the kernels DMA by);
-2. the in-scan rebuilds that remain (drift-triggered) are measured here by
-   forcing the drift predicate off (`verlet_skin=1e6` at step build time —
-   physics goes stale after the first window, but the compute shape is
-   identical, which is what a timing bound needs);
-3. the absolute entry+exit overhead bound comes from a 1-substep scan.
+Within a step the contact window is Verlet-cached (`engine._physics_scan_xla`:
+the window rides the 11-substep scan carry; a `lax.cond` rebuilds it only
+when drift crosses skin/2). This tool measures the in-scan rebuilds by
+forcing the drift predicate off (`verlet_skin=1e6` at step build time —
+physics goes stale after the first window, but the compute shape is
+identical, which is what a timing bound needs), and prints the division
+count per step: ~n/36 agents divide every step (division clocks uniform
+over [0, 36), reference `cell_simulation.py:146`), so membership changes
+at every step boundary and a window cannot be carried across steps.
 
 Usage: python tools/rebuild_floor.py [n_cells]
 """
@@ -32,26 +17,20 @@ import sys
 import time
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/hipsc_jax_cache_tpu")
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from hipsc_abm_tpu.engine import HipscEngine, hipsc_step  # noqa: E402
-from hipsc_abm_tpu.models.params import (  # noqa: E402
+from hipsc_abm.engine import HipscEngine, hipsc_step  # noqa: E402
+from hipsc_abm.models.params import (  # noqa: E402
     ExperimentalParams, GeneralParams)
 
 
 def timeit(name, fn, *args, reps=5):
-    out = fn(*args)
-    leaves = jax.tree_util.tree_leaves(out)
-    float(jnp.sum(leaves[0].astype(jnp.float32)))
+    jax.block_until_ready(fn(*args))
     t0 = time.perf_counter()
     for _ in range(reps):
         out = fn(*args)
-    leaves = jax.tree_util.tree_leaves(out)
-    float(jnp.sum(leaves[0].astype(jnp.float32)))
+    jax.block_until_ready(out)
     ms = (time.perf_counter() - t0) / reps * 1000
     print(f"{name:52s} {ms:9.2f} ms", flush=True)
     return ms
@@ -68,14 +47,13 @@ def main(n=500_000):
         s, info = eng.safe_step(s)
         adds.append(int(info.num_added))
     cfg, bio = eng.cfg, eng.bio
-    print(f"n={n}  capacity {cfg.capacity}  K {cfg.bond_cap}  "
-          f"jkr_span {cfg.jkr_span}  pallas {cfg.use_pallas}")
+    print(f"n={n}  capacity {cfg.capacity}  K {cfg.bond_cap}")
     print(f"divisions per step (probe num_added): {adds} "
           f"(expected ~n/36 = {n // 36}) — membership changes EVERY step, "
           "so a cross-step carried window is invalid at every entry")
 
     t_full = timeit(
-        "full step (as-is: entry rebuild + drift rebuilds + exit)",
+        "full step (as-is: entry build + drift rebuilds)",
         jax.jit(lambda st: hipsc_step(
             st, cfg=cfg, gen=gen, xp=xp, bio=bio, diff=None)[0]), s)
 
@@ -87,11 +65,6 @@ def main(n=500_000):
 
     print(f"\nin-scan (drift) rebuild cost actually paid: "
           f"{t_full - t_norb:+.1f} ms/step")
-    print("cross-step carryover ceiling = entry sort+plan+permute + "
-          "(seed - masked) + exit compact (see BENCHMARKS.md round-3 "
-          "table: ~25 + ~5 + ~25 ms at 500k) — reachable ONLY on steps "
-          "with zero membership change, which the division clocks rule "
-          "out in the flagship model at every scale.")
 
 
 if __name__ == "__main__":

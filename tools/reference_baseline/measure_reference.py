@@ -1,7 +1,6 @@
 """Measure the ACTUAL reference (ajin40/Python-hiPSC-ABM at /root/reference)
 end-to-end, reading its own ``<name>_data.csv`` instrumentation
-(``simulation.py:392-419``) — the measured baseline VERDICT round-1 item 4
-asked for.
+(``simulation.py:392-419``) — the measured baseline of ``bench.py``.
 
 numba/python-igraph are not installable here, so the five @jit kernels run
 through speed-representative C++/OpenMP implementations and igraph through a

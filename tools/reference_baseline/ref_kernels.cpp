@@ -6,7 +6,7 @@
 // the parallelism numba's prange would give, letting the reference's own
 // Python layer run at a speed representative of its numba-compiled form.
 //
-// NOT part of the framework: the TPU engine never calls this library.
+// NOT part of the framework: the engine never calls this library.
 //
 // Build: g++ -O3 -march=native -fopenmp -shared -fPIC ref_kernels.cpp -o libref_kernels.so
 

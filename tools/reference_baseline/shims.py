@@ -151,7 +151,7 @@ def make_numba_shim() -> types.ModuleType:
 
 class ShimGraph:
     """The igraph.Graph surface the reference uses, on numpy edge arrays with
-    cached adjacency (mirrors hipsc_abm_tpu.simulation.AgentGraph)."""
+    cached adjacency (mirrors hipsc_abm.simulation.AgentGraph)."""
 
     def __init__(self, n=0):
         self._n = int(n)

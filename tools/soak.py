@@ -12,7 +12,6 @@
 - ``elastic``: 40 steps resumed across four decompositions
   ((2,2) -> (4,2) -> single -> (2,2)) vs the uninterrupted run, bit-exact.
 
-Results recorded in BENCHMARKS.md ("Multi-chip") and docs/SCALING.md.
 Needs >= 8 devices (the virtual CPU mesh counts)."""
 
 import dataclasses
@@ -32,17 +31,17 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from hipsc_abm_tpu.engine import HipscEngine, config_to_meta
-from hipsc_abm_tpu.models.params import (
+from hipsc_abm.engine import HipscEngine, config_to_meta
+from hipsc_abm.models.params import (
     DiffusionParams,
     ExperimentalParams,
     GeneralParams,
 )
-from hipsc_abm_tpu.parallel.domain_engine import (
+from hipsc_abm.parallel.domain_engine import (
     DomainHipscEngine,
     domain_config_from_meta,
 )
-from hipsc_abm_tpu.utils.checkpoint import load_state, save_state
+from hipsc_abm.utils.checkpoint import load_state, save_state
 
 
 def _by_id(state):
@@ -76,9 +75,9 @@ def soak_domain(steps, tiles, gen, xp, diffusion):
             max_concentration=2.0, degradation=0.1, release_amount=0.01,
             uptake_amount=0.002, field_coupling=False),
             enable_diffusion=True)
-    dom = DomainHipscEngine(gen, xp, tiles=tiles, use_pallas=False, **kw)
+    dom = DomainHipscEngine(gen, xp, tiles=tiles, **kw)
     dstate = dom.init_state(seed=5)
-    single = HipscEngine(gen, xp, cfg=dom.cfg.base, use_pallas=False, **kw)
+    single = HipscEngine(gen, xp, cfg=dom.cfg.base, **kw)
     single.cfg = dom.cfg.base
     sstate = single.init_state(seed=5)
     t0 = time.time()
@@ -100,8 +99,8 @@ def soak_elastic():
     xp = ExperimentalParams(num_gata6=220, dox_step=3)
     tmp = tempfile.mkdtemp()
 
-    dom0 = DomainHipscEngine(gen, xp, tiles=(2, 2), use_pallas=False)
-    ref = HipscEngine(gen, xp, cfg=dom0.cfg.base, use_pallas=False)
+    dom0 = DomainHipscEngine(gen, xp, tiles=(2, 2))
+    ref = HipscEngine(gen, xp, cfg=dom0.cfg.base)
     ref.cfg = dom0.cfg.base
     rstate = ref.init_state(seed=9)
     for _ in range(40):
@@ -112,7 +111,7 @@ def soak_elastic():
         d, _ = dom0.safe_step(d)
     dom0.save_checkpoint(os.path.join(tmp, "ck1"), d)
 
-    dom1 = DomainHipscEngine(gen, xp, tiles=(4, 2), use_pallas=False)
+    dom1 = DomainHipscEngine(gen, xp, tiles=(4, 2))
     d = dom1.load_checkpoint(os.path.join(tmp, "ck1"), elastic=True)
     for _ in range(10):
         d, _ = dom1.safe_step(d)
@@ -120,7 +119,7 @@ def soak_elastic():
 
     flat, meta = load_state(os.path.join(tmp, "ck2"))
     cfg = domain_config_from_meta(meta["domain_config"]).base
-    single = HipscEngine(gen, xp, cfg=cfg, use_pallas=False)
+    single = HipscEngine(gen, xp, cfg=cfg)
     single.cfg = dataclasses.replace(cfg, capacity=int(flat.alive.shape[0]))
     s = flat
     for _ in range(10):
@@ -128,7 +127,7 @@ def soak_elastic():
     save_state(os.path.join(tmp, "ck3"), s,
                meta={"engine_config": config_to_meta(single.cfg)})
 
-    dom2 = DomainHipscEngine(gen, xp, tiles=(2, 2), use_pallas=False)
+    dom2 = DomainHipscEngine(gen, xp, tiles=(2, 2))
     d = dom2.load_checkpoint(os.path.join(tmp, "ck3"), elastic=True)
     for _ in range(10):
         d, dinfo = dom2.safe_step(d)
